@@ -1,4 +1,4 @@
-// Native runtime components for the TPU radiative-transfer framework.
+// Native runtime components for the radiative-transfer framework.
 //
 // The reference's runtime (grid walk, snapshot flattening, format
 // converters) is compiled Fortran; this library provides the equivalent

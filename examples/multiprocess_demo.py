@@ -3,7 +3,7 @@
 Launches N worker processes on this machine, each owning a slice of virtual
 CPU devices; `jax.distributed.initialize` (through
 parallel.mesh.maybe_initialize_distributed — the same entry point the CLI
-uses for real multi-host TPU pods) brings up the coordinator, the global
+uses for real multi-host runs) brings up the coordinator, the global
 mesh spans every process, and the production transport+chemistry step runs
 under GSPMD with the halo exchanges crossing the process boundary — the
 mechanics of the DCN path, exercised end to end (SURVEY.md §5.8; the

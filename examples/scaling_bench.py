@@ -1,9 +1,9 @@
 """Multi-device scaling measurement of the sharded transport+chemistry step.
 
 Runs the full UVB-transfer step on an N-device mesh for N in {1,2,4,8} and
-reports throughput + efficiency.  On real hardware the mesh rides ICI; in
-this environment it runs on 8 virtual CPU devices (the driver validates the
-multi-chip path the same way via __graft_entry__.dryrun_multichip).
+reports throughput + efficiency.  On GPUs the collectives run over NCCL;
+on the CPU it runs on 8 virtual devices (__graft_entry__.dryrun_multichip
+validates the multi-device path the same way).
 
 Usage: JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
        python examples/scaling_bench.py [n]
@@ -44,12 +44,12 @@ def bench_full_step(model, state0, n, cfg, results):
         state = pmesh.shard_state(state0, mesh)
         step = jax.jit(model.transport_chemistry_step)
         out = step(state)
-        float(jnp.sum(out.HI))  # compile + run
+        jax.block_until_ready(out.HI)  # compile + run
         t0 = time.perf_counter()
         reps = 2
         for _ in range(reps):
             out = step(state)
-            float(jnp.sum(out.HI))
+            jax.block_until_ready(out.HI)
         dt = (time.perf_counter() - t0) / reps
         thr = n ** 3 * cfg.n_directions / dt
         results[f"gspmd/{nd}"] = thr
@@ -74,11 +74,11 @@ def bench_explicit_sweeps(model, state0, n, cfg, results):
                     if strategy == "pipelined" else kappa)
             run = sweep_dist.make_jitted_sweep_dist(model.sweep_plan, mesh,
                                                     strategy)
-            float(jnp.sum(run(k_in, uvb, cell)))
+            jax.block_until_ready(run(k_in, uvb, cell))
             t0 = time.perf_counter()
             reps = 2
             for _ in range(reps):
-                float(jnp.sum(run(k_in, uvb, cell)))
+                jax.block_until_ready(run(k_in, uvb, cell))
             dt = (time.perf_counter() - t0) / reps
             thr = n ** 3 * cfg.n_directions / dt
             results[f"{strategy}/{nd}"] = thr

@@ -1,5 +1,5 @@
-"""radiativetransfer_tpu — a TPU-native cosmological radiative-transfer
-framework (JAX/XLA/Pallas rebuild of the FTTE's capabilities).
+"""radiativetransfer_tpu — a cosmological radiative-transfer framework
+(JAX/XLA rebuild of the FTTE's capabilities).
 
 Public API:
 

@@ -1,4 +1,4 @@
-"""Physical constants for the TPU-native radiative-transfer framework.
+"""Physical constants for the radiative-transfer framework.
 
 Values mirror the reference implementation's constant block
 (/root/reference/definitionsModule.f90:8-41) so that table builders and

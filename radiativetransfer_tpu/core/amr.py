@@ -1,15 +1,15 @@
 """Two-level nested (AMR) grid support.
 
-The reference's fully-threaded octree supports arbitrary nesting; the
-TPU-native design replaces pointer-walking with LEVEL-DENSE fields
+The reference's fully-threaded octree supports arbitrary nesting; this
+design replaces pointer-walking with LEVEL-DENSE fields
 (SURVEY.md §7.1): the base level is a dense (n,n,n) grid, the refinement
 level a dense (2n,2n,2n) grid valid only where the parent bitmap is set.
 Fully-threaded semantics (cross-level neighbor access) become restrict /
 prolong operators and masked shifts.
 
 Memory note: the fine level is allocated densely over the whole domain
-(8x the base) for TPU-friendly static shapes; block-sparse fine storage is
-a planned optimization for deeper hierarchies.
+(8x the base) for static shapes; deeper hierarchies use the block-sparse
+storage of core.amr_sparse.
 """
 
 from __future__ import annotations

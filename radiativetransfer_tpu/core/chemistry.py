@@ -1,6 +1,6 @@
 """H/He ionization-equilibrium chemistry and the thermal balance diagnostic.
 
-TPU-native re-design of the reference's per-cell solvers:
+Vectorized re-design of the reference's per-cell solvers:
 
 * solve_rate_equations — port of solveRateEquations
   (/root/reference/equiSources.f90:3459-3677).  The reference bisects on the
@@ -231,7 +231,7 @@ def solve_rate_equations(state, geom, tables: RateTablesDevice, ksi_matrix=None,
 def solve_h_only_equilibrium(nh, tgas, g24, tables: RateTablesDevice):
     """Closed-form pure-hydrogen photoionization equilibrium.
 
-    For H-only configs (BASELINE config 2): balance
+    For H-only configs: balance
       HI*(k1*de + g24) = k2*HII*de  with de = HII
     expands to the quadratic
       (k1 + k2)*HII^2 + (g24 - nh*k1)*HII - nh*g24 = 0,

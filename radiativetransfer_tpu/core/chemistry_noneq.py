@@ -9,7 +9,7 @@ solves the H/He photoionization *equilibrium* (solveRateEquations,
 /root/reference/equiSources.f90:3459-3677).  This module supplies the
 non-equilibrium update the tables were built for (the north-star capability:
 "non-equilibrium H/He/H2 photoionization-chemistry update"), designed
-TPU-first:
+for vectorized accelerators:
 
 * the integrator is the positivity-preserving sequential BDF1 scheme of
   Anninos et al. (1997, NewA 2, 209): each species is updated as

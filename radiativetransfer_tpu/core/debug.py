@@ -3,17 +3,15 @@
 The reference guards its hot paths with ~40 stop-asserts (intensity
 sanity, geometry bound checks, species-range checks — e.g. checkPoint,
 /root/reference/equiSources.f90:2962-2976; transportRoutinesModule.f90:
-680-688).  The TPU analogs:
+680-688).  The analogs here:
 
 * `jax.config.jax_debug_nans` (CLI --debug-nans) — cheap, always
   available;
-* host-side SMEM chain-table validation before Pallas launches
-  (core.sweep_pallas._validate_zone_tables);
+* host-side chain-table validation of every sweep plan
+  (core.sweep.validate_zone_tables);
 * THIS module: `checkify` instrumentation of the XLA compute paths —
   gather/scatter index bounds, NaN/Inf production, and division — run as
-  a pre-flight on the actual ingested data (CLI --debug-checkify).  The
-  Pallas sweep kernel cannot be checkify-instrumented (Mosaic), so the
-  checked sweep uses the mathematically identical lax.scan formulation.
+  a pre-flight on the actual ingested data (CLI --debug-checkify).
 """
 
 from __future__ import annotations
@@ -65,8 +63,7 @@ def checked_trace(state_fields, geom, sources, tables,
 
 
 def checked_sweep_chemistry(model, state):
-    """One diffuse sweep (lax.scan formulation — the Pallas kernel is not
-    checkify-instrumentable) + equilibrium chemistry under checkify.
+    """One diffuse sweep + equilibrium chemistry under checkify.
     Raises on the first NaN/Inf, out-of-bounds index, or bad division."""
     cfg = model.config
 

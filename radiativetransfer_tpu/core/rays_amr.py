@@ -41,6 +41,7 @@ from ..constants import (
     rmax_table,
 )
 from .rays import (
+    _HIGHEST,
     RateFields,
     RayDiagnostics,
     SourceBatch,
@@ -334,7 +335,8 @@ def _trace_all_phases_amr(fields, init_state, tables, geom, n_sources,
             r_stop, last, dust_approximation, max_steps, src_of_ray,
             rel_kill=rel_kill)
 
-        spec_tau = state.cross_depth @ sig_ratio
+        spec_tau = jnp.dot(state.cross_depth, sig_ratio,
+                           precision=_HIGHEST)
         contrib = jnp.where(state.crossed[:, None],
                             state.ndot[:, None] * jnp.exp(-spec_tau), 0.0)
         diag = dataclasses.replace(

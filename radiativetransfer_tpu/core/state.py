@@ -1,7 +1,7 @@
 """Dense field state for the transport + chemistry solve.
 
 The reference stores per-cell physics in a pointer octree (zoneType,
-/root/reference/definitionsModule.f90:163-180).  The TPU-native design keeps
+/root/reference/definitionsModule.f90:163-180).  This design keeps
 level-dense arrays: a uniform base level (nx, ny, nz) plus optional refined
 levels (added in the AMR extension).  All fields are JAX arrays registered as
 a pytree so the full state flows through jit/shard_map.

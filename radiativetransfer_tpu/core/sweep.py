@@ -1,4 +1,4 @@
-"""The diffuse upwind sweep, TPU-native.
+"""The diffuse upwind sweep.
 
 Replaces the reference's serial 192-direction cell-by-cell sweep
 (/root/reference/equiSources.f90:1372-1808, transportRoutinesModule.f90:560-963)
@@ -31,7 +31,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..geometry import healpix, octants, patterns
-from ..geometry.patterns import SEG_XZ
+from ..geometry.patterns import SEG_NONE, SEG_XZ, SEG_YZ
 
 # small-tau switch for the (1-e^-tau)/tau form: 1e-10 in float64 matches the
 # reference branch (equiSources.f90:1618); float32 needs a much larger
@@ -73,8 +73,35 @@ class SweepPlan:
         return 1.0 / self.n_directions
 
 
+def validate_zone_tables(zone: ZoneBatch) -> None:
+    """Check a zone's chain tables before they reach the sweep.
+
+    slab_step selects shifts and lengths with jnp.where on the chain codes,
+    so a malformed code or an n_active that disagrees with the chain would
+    silently give wrong intensities (SURVEY.md 5.2).  Raises ValueError
+    naming the first offending (direction, slab) entry."""
+    c2 = np.asarray(zone.chain2)
+    c3 = np.asarray(zone.chain3)
+    na = np.asarray(zone.n_active)
+    lens = np.stack([np.asarray(zone.len_xy), np.asarray(zone.len_xz),
+                     np.asarray(zone.len_yz)])
+    ok_codes = np.isin(c2, (SEG_NONE, SEG_XZ, SEG_YZ)) \
+        & np.isin(c3, (SEG_NONE, SEG_XZ, SEG_YZ))
+    chain_consistent = (1 + (c2 != SEG_NONE) + (c3 != SEG_NONE)) == na
+    dangling = (c3 != SEG_NONE) & (c2 == SEG_NONE)
+    finite = np.isfinite(lens).all(axis=0) & (lens >= 0.0).all(axis=0)
+    bad = ~(ok_codes & chain_consistent & ~dangling & finite)
+    if bad.any():
+        i = tuple(np.argwhere(bad)[0])
+        raise ValueError(
+            f"zone {zone.izone}: malformed chain table at (dir, slab)={i}: "
+            f"chain2={c2[i]} chain3={c3[i]} n_active={na[i]} "
+            f"lens={[float(l[i]) for l in lens]}")
+
+
 def build_sweep_plan(n_angular_level: int, nx: int) -> SweepPlan:
-    """Fold all HEALPix directions, group by zone, build slab templates."""
+    """Fold all HEALPix directions, group by zone, build and check the slab
+    templates."""
     phi, theta = healpix.sweep_directions(n_angular_level)
     folded = octants.fold_all(phi, theta)
     groups = octants.group_by_zone(folded)
@@ -83,10 +110,12 @@ def build_sweep_plan(n_angular_level: int, nx: int) -> SweepPlan:
         ds = groups[izone]
         p = patterns.stack_patterns(
             [patterns.build_slab_patterns(d.phi, d.theta, nx) for d in ds])
-        zones.append(ZoneBatch(
+        zone = ZoneBatch(
             izone=izone, ndir=len(ds),
             len_xy=p.len_xy, len_xz=p.len_xz, len_yz=p.len_yz,
-            chain2=p.chain2, chain3=p.chain3, n_active=p.n_active))
+            chain2=p.chain2, chain3=p.chain3, n_active=p.n_active)
+        validate_zone_tables(zone)
+        zones.append(zone)
     return SweepPlan(zones=tuple(zones), n_directions=len(folded), nslab=nx)
 
 
@@ -95,11 +124,14 @@ def _attenuate(i_in, tau):
 
     logmean = (Iin - Iout)/ln(Iin/Iout) = Iin*(1-e^-tau)/tau, with the
     small-tau limit Iin*(1 - tau/2) (branch at equiSources.f90:1618-1632 and
-    computeCellIntensity).
+    computeCellIntensity).  1 - e^-tau comes from expm1: formed as 1 - a
+    it cancels to ~6e-4 relative error in f32 just above the switch, while
+    a itself stays exp(-tau), accurate where it is tiny.
     """
     a = jnp.exp(-tau)
     eps = _tau_eps(tau.dtype)
-    emi = jnp.where(tau > eps, (1.0 - a) / jnp.where(tau > eps, tau, 1.0),
+    emi = jnp.where(tau > eps,
+                    -jnp.expm1(-tau) / jnp.where(tau > eps, tau, 1.0),
                     1.0 - 0.5 * tau)
     return i_in * a, i_in * emi
 

@@ -212,7 +212,7 @@ def fold_all(phis: np.ndarray, thetas: np.ndarray) -> list[FoldedDirection]:
 
 def group_by_zone(dirs: list[FoldedDirection]) -> dict[int, list[FoldedDirection]]:
     """Directions grouped by zone; the sweep batches each group with a single
-    field transpose (the TPU analog of the per-direction rotateIndices walk)."""
+    field transpose (the batched analog of the per-direction rotateIndices walk)."""
     groups: dict[int, list[FoldedDirection]] = {}
     for d in dirs:
         groups.setdefault(d.izone, []).append(d)

@@ -7,7 +7,7 @@ slab to slab (equiSources.f90:1495-1553).  All cells in a slab share the
 template — the central memory/compute trick of Razoumov & Cardall 2005.
 
 Here we precompute the whole template chain for all slabs of a direction as
-small NumPy arrays ("SlabPatterns"), which the TPU sweep kernel consumes as
+small NumPy arrays ("SlabPatterns"), which the slab sweep (core.sweep) consumes as
 per-slab scalars.  Segment naming (canonical sweep orientation; array axes
 (slab, j, k)):
 

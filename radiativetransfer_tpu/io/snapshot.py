@@ -6,7 +6,7 @@ dims + 1-D arrays level, HI, HeI, HeII, temperature, density [, vel, abun2]
 (writeIonization, /root/reference/equiSources.f90:4797-4912; restart
 readLatestIonization :4738-4795).
 
-The TPU build keeps the same logical schema in NumPy `.npz` containers (the
+This build keeps the same logical schema in NumPy `.npz` containers (the
 environment ships no HDF4/HDF5 bindings): dense single-level grids store the
 fields directly in C order — which IS the depth-first leaf order for an
 unrefined grid — and AMR exports flatten through the SFC codec (io.sfc).

@@ -50,8 +50,8 @@ def prepare_sources(stars: StarList, n: int, upper_age_limit: float,
 
     Returns (SourceBatch, host_cell_index (S,3) at base level,
     n_stars_specific_age).  table_idx buckets sources by host-cell
-    metallicity when metal_bucket_edges is given (the TPU analog of the
-    per-source stellarBetaTable rebuild: sources sharing a bucket share a
+    metallicity when metal_bucket_edges is given (the batched analog of
+    the per-source stellarBetaTable rebuild: sources sharing a bucket share a
     table).
     """
     young = stars.age <= upper_age_limit

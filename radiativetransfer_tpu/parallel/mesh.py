@@ -4,14 +4,15 @@ The reference is serial (SURVEY.md §5.8); this layer is the new distributed
 runtime: a 1-D/2-D/3-D `jax.sharding.Mesh` over the grid, NamedSharding
 annotations on the field state, and XLA-inserted collectives for the sweep's
 halo exchanges.  The sweep's shifted-slice accesses along a sharded axis
-lower to collective-permutes on ICI under GSPMD; the slab scan along a
+lower to collective-permutes under GSPMD; the slab scan along a
 sharded axis becomes the per-direction pipeline of SURVEY.md §7.3.
 
 Multi-host: `maybe_initialize_distributed` brings up the jax.distributed
 runtime when launched under a coordinator (explicit flags or the standard
-JAX_COORDINATOR_ADDRESS / cloud-TPU auto-detect environment), after which
-`jax.devices()` spans all hosts and the same mesh/sharding code runs
-unchanged over ICI+DCN.
+JAX_COORDINATOR_ADDRESS environment), after which `jax.devices()` spans all
+hosts and the same mesh/sharding code runs unchanged.  The mesh is a flat
+device list: every device reaches every other at the same rate (NVLink
+within a host), so the mesh shape follows the algorithm alone.
 """
 
 from __future__ import annotations
@@ -36,8 +37,7 @@ def maybe_initialize_distributed(coordinator: str | None = None,
     jax.distributed is active.
 
     Explicit arguments win; otherwise the standard environment is used
-    (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID, or the
-    cloud-TPU metadata auto-detection built into jax.distributed).  Safe to
+    (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID).  Safe to
     call twice (a second call is a no-op).
     """
     env = os.environ

@@ -3,8 +3,8 @@
 parallel.rays_dist (source parallelism) all-gathers the full grid onto
 every shard, capping grid size at one device's HBM (VERDICT r2 missing-2).
 Here the FIELDS STAY SHARDED (1-D mesh over the last grid axis, or 2-D
-over the last two) and rays migrate between shards instead — the TPU
-analog of particle exchange, and the distributed form of drawSegment's
+over the last two) and rays migrate between shards instead — the
+data-parallel analog of particle exchange, and the distributed form of drawSegment's
 locality (/root/reference/equiSources.f90:2412-2595: the cell walk only
 ever touches the current cell and its face neighbor).  A two-level AMR
 variant (trace_point_sources_domain_amr) keeps base+fine sharded and
@@ -61,7 +61,7 @@ from ..constants import (
     rmax_table,
 )
 from ..core import rays as rays_mod
-from ..core.rays import RateFields, RayDiagnostics, SourceBatch
+from ..core.rays import _HIGHEST, RateFields, RayDiagnostics, SourceBatch
 
 # dtype-aware kill threshold (core.rays.default_tau_kill): 100 in f64
 # for reference parity, 30 in f32 where e^-30 is below accumulation
@@ -376,7 +376,8 @@ def trace_point_sources_domain(state_fields, geom, sources: SourceBatch,
                 diag,
                 ndot_remaining=diag.ndot_remaining.at[src_of_ray].add(rem),
                 ndot_boundary=diag.ndot_boundary.at[src_of_ray].add(bnd))
-            spec_tau = state.cross_depth @ sig_ratio
+            spec_tau = jnp.dot(state.cross_depth, sig_ratio,
+                               precision=_HIGHEST)
             contrib = jnp.where((state.crossed & resident)[:, None],
                                 state.ndot[:, None] * jnp.exp(-spec_tau),
                                 0.0)
@@ -1015,7 +1016,8 @@ def trace_point_sources_domain_ml(ml_state, geom, sources: SourceBatch,
                 diag,
                 ndot_remaining=diag.ndot_remaining.at[src_of_ray].add(rem),
                 ndot_boundary=diag.ndot_boundary.at[src_of_ray].add(bnd))
-            spec_tau = state.cross_depth @ sig_ratio
+            spec_tau = jnp.dot(state.cross_depth, sig_ratio,
+                               precision=_HIGHEST)
             contrib = jnp.where((state.crossed & resident)[:, None],
                                 state.ndot[:, None] * jnp.exp(-spec_tau),
                                 0.0)
@@ -1173,7 +1175,8 @@ def trace_point_sources_domain_amr(amr_state, geom, sources: SourceBatch,
                 diag,
                 ndot_remaining=diag.ndot_remaining.at[src_of_ray].add(rem),
                 ndot_boundary=diag.ndot_boundary.at[src_of_ray].add(bnd))
-            spec_tau = state.cross_depth @ sig_ratio
+            spec_tau = jnp.dot(state.cross_depth, sig_ratio,
+                               precision=_HIGHEST)
             contrib = jnp.where((state.crossed & resident)[:, None],
                                 state.ndot[:, None] * jnp.exp(-spec_tau),
                                 0.0)

@@ -3,7 +3,7 @@
 The reference is serial (SURVEY.md §5.8); `core.sweep` already runs sharded
 under GSPMD auto-partitioning (tests/test_parallel.py), but the collective
 schedule is then up to the compiler.  This module provides the two explicit
-TPU-native distribution strategies with hand-placed collectives:
+distribution strategies with hand-placed collectives:
 
 1. `diffuse_sweep_pipelined` — **grid decomposition**.  The field keeps its
    NamedSharding on one grid axis; for every octant zone the rotated opacity
@@ -11,7 +11,7 @@ TPU-native distribution strategies with hand-placed collectives:
    inserts at the sharding constraint), so the slab scan advances in lockstep
    on all devices and only the in-slab upwind `yz` shift crosses the shard
    boundary: one boundary *line* (ndir, 3, ny, 1) per chain segment per slab
-   is exchanged with `jax.lax.ppermute` over ICI.  There is no pipeline
+   is exchanged with `jax.lax.ppermute` (NCCL over NVLink on the GPU).  There is no pipeline
    bubble — the scan axis is never sharded.  This is the halo-exchange
    pipeline of SURVEY.md §7.3 ("cross-device, the x-decomposed pipeline must
    overlap slabs with halo sends").
@@ -327,16 +327,13 @@ def diffuse_sweep_sparse_zones(k0, lv_kappas, state, plan, uvb, cell_size,
     dealt to the devices, each device sweeps its chunks over the full
     replicated sparse grid, and the base-level + per-level-block Jmean
     contributions are psum-reduced.  This is the strategy the deep-AMR
-    production regime needs (BASELINE.md round 4: ~11 s/direction
-    single-chip at 128^3 + 3 levels, 192 directions -> the 24 octant
-    zones over N chips; VERDICT r4 item 1); per-sweep communication is
+    production regime uses across devices; per-sweep communication is
     ONE psum of the accumulators, so scaling is bounded only by chunk
     load balance.
 
     eager_rounds: dispatch one round (n_devices chunks) per jitted call
-    with a data-dependent sync between rounds — the bounded-dispatch form
-    for remote workers whose RPC deadline a whole-sweep dispatch exceeds
-    (the distributed analog of diffuse_sweep_sparse's eager_zones).
+    with a device sync between rounds — the bounded-dispatch form (the
+    distributed analog of diffuse_sweep_sparse's eager_zones).
 
     Returns (J0 (3, n, n, n), [J blocks (3, nb, be, be, be) per refined
     level]), replicated over the mesh.  Parity with the single-device
@@ -390,7 +387,7 @@ def diffuse_sweep_sparse_zones(k0, lv_kappas, state, plan, uvb, cell_size,
                     cell_size, j0_acc, jb_acc)
                 # one dispatch in flight at a time (see
                 # sweep_sparse.diffuse_sweep_sparse's eager_zones)
-                float(jnp.max(j0_acc[0, 0, 0]))
+                jax.block_until_ready(j0_acc)
         else:
             j0_acc, jb_acc = runner(izones, stacked, jnp.asarray(scales),
                                     starts, ctx, uvb, cell_size,

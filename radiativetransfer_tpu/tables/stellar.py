@@ -13,7 +13,7 @@ Ports:
   (stellarBetaTable.f90:217-285).  The reference's quadruple loop over
   attenuation states is restructured as a rank-1-separable product: the
   attenuation factor exp(-sum tau_i s_i(nu)) factorizes per axis, so each
-  table is one (nfreq x 121) @ (nfreq x 121) matmul — MXU-friendly and
+  table is one (nfreq x 121) @ (nfreq x 121) matmul — one dense product and
   ~5000x less exp() work than the reference's 5.9M exp per source.
 
 * interp_rates_4d — quad-linear interpolation of log(rate)
@@ -383,8 +383,8 @@ def quadrature_arrays(pop: StellarPopulation, i_spec: int, coef_spec: float,
       rate_c(tau) = sum_f W[f, c] * exp(-sum_i tau_i * A[i, f])
     on an 11^4 grid (stellarBetaTable.f90:217-285).  This returns the
     integrand factors themselves so the ray tracer can evaluate the SAME
-    sum exactly at arbitrary tau as two small matmuls plus an exp — an
-    MXU-friendly form with no table gathers (and no quad-linear
+    sum exactly at arbitrary tau as two small matmuls plus an exp — a
+    dense-product form with no table gathers (and no quad-linear
     interpolation error; the reference interpolates,
     equiSources.f90:4157-4311).
 

@@ -1,12 +1,12 @@
-"""Production-scale deep-AMR demo (VERDICT r2 missing-1 'done' criterion):
+"""Production-scale deep-AMR demo:
 
 a 128^3 base grid + 3 block-sparse refined levels (effective 1024^3, the
 reference's production regime: /root/reference/inputParameters:3 with deep
 nesting) ingests and runs a FULL UVB transport + chemistry step within one
-TPU chip's HBM.  Dense per-level storage would need ~68 GB for the fields
+device's memory.  Dense per-level storage would need ~68 GB for the fields
 alone; block storage keeps the state at O(leaves).
 
-Run on the TPU:          python scripts/deep_amr_production.py
+Run on the GPU:          python scripts/deep_amr_production.py
 Smoke-run on CPU (tiny): python scripts/deep_amr_production.py --smoke
 """
 
@@ -55,9 +55,8 @@ def main():
     ap.add_argument("--dirs-per-launch", type=int, default=4)
     ap.add_argument("--eager", action="store_true",
                     help="run the sweep+chemistry tail eagerly (one compile "
-                         "per zone-group scan instead of one monolithic jit "
-                         "— avoids tunnel-size compiles at the largest "
-                         "configs)")
+                         "per zone-group scan instead of one monolithic "
+                         "jit)")
     args = ap.parse_args()
 
     import jax

@@ -1,8 +1,6 @@
-"""Per-collective breakdown + ICI prediction for the distributed sweep
-(VERDICT r3 weak-6).
+"""Per-collective breakdown of the distributed sweeps.
 
-Multi-chip hardware is not available in this environment (BASELINE.md),
-so the scaling story is built from measurable structure:
+What the structure of the schedules fixes, before any multi-card timing:
 
 1. EXACT collective accounting from the sweep plan: how many ppermute
    calls and how many bytes cross a shard face per full sweep for the
@@ -12,10 +10,11 @@ so the scaling story is built from measurable structure:
    pipelined-with-no-halo (ppermute replaced by a local boundary feed —
    identical op count minus the collectives) vs the zones strategy
    (replicated fields, one psum).
-3. The ICI prediction: halo bytes / per-hop ICI bandwidth vs the
-   measured single-chip sweep time -> predicted multi-chip efficiency
-   for the pipelined schedule, and the zones schedule's bound
-   (ceil(24/P)/(24/P) with one (3,n,n,n) psum).
+3. The production-shape counts: halo bytes and calls of the pipelined
+   schedule at 256^3 x 192 directions, the zones schedule's load-balance
+   bound (ceil(24/P)/(24/P)) and psum payload, and the sparse zones
+   schedule's psum count and payload at 128^3 + 3 levels.  A time
+   prediction needs measured NVLink numbers from the card.
 
 Run:  JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \\
         python scripts/dist_sweep_breakdown.py
@@ -45,10 +44,6 @@ from radiativetransfer_tpu.parallel import mesh as pmesh, sweep_dist
 N = int(os.environ.get("EXP_N", "48"))
 LEVEL = int(os.environ.get("EXP_LEVEL", "2"))
 REPS = 3
-
-# single-chip reference numbers from BASELINE.md (measured on v5e):
-SWEEP_MS_256 = 105.5          # 256^3 x 192 dirs Pallas sweep
-ICI_GBPS = 45.0               # v5e per-link ICI bandwidth, one direction
 
 
 def timeit(fn, *args):
@@ -121,37 +116,26 @@ def main():
           f"shared-socket virtual mesh)")
     print(f"zones (replicated + psum)  : {tz * 1e3:8.1f} ms")
 
-    # ICI prediction at production scale (256^3 x 192 dirs)
+    # exact counts at production scale (256^3 x 192 dirs)
+    import math
     plan256 = sweep.build_sweep_plan(3, 256)
     calls256, bytes256 = halo_accounting(plan256, 256)
-    t_halo = bytes256 / (ICI_GBPS * 1e9)
-    # per-call latency floor ~1 us on ICI
-    t_lat = calls256 * 1e-6
-    t_sweep = SWEEP_MS_256 / 1e3
-    eff = t_sweep / (t_sweep / 1 + t_halo + t_lat)  # per-shard compute
     print()
-    print(f"production prediction (256^3 x 192 dirs, v5e ICI "
-          f"{ICI_GBPS:.0f} GB/s):")
-    print(f"  halo traffic {bytes256 / 1e6:.1f} MB + {calls256} calls "
-          f"-> {t_halo * 1e3:.2f} ms wire + {t_lat * 1e3:.2f} ms latency")
-    print(f"  vs {SWEEP_MS_256:.1f} ms sweep compute -> pipelined "
-          f"efficiency bound ~{100 * eff:.1f}% (collectives overlap "
-          f"with the unsharded-axis slab scan, so this is the floor)")
+    print("production shape (256^3 x 192 dirs):")
+    print(f"  pipelined halo traffic {bytes256 / 1e6:.1f} MB in "
+          f"{calls256} ppermute calls per shard face")
     for p in (2, 4, 8):
-        import math
         zeff = (24 / p) / math.ceil(24 / p)
-        print(f"  zones strategy at {p} chips: load-balance bound "
+        print(f"  zones strategy at {p} devices: load-balance bound "
               f"{100 * zeff:.0f}% + one (3,256^3) psum "
-              f"({3 * 256 ** 3 * 4 / 1e6:.0f} MB, "
-              f"{3 * 256 ** 3 * 4 / (ICI_GBPS * 1e9) * 1e3:.1f} ms)")
+              f"({3 * 256 ** 3 * 4 / 1e6:.0f} MB)")
 
     sparse_zones_accounting()
 
 
 def sparse_zones_accounting():
     """Exact collective accounting for the SPARSE zones schedule at the
-    production shape (VERDICT r4 item 1: the angle-decomposed deep-AMR
-    sweep over chips).  Per direction-chunk group the runner issues ONE
+    production shape (the angle-decomposed deep-AMR sweep over devices).  Per direction-chunk group the runner issues ONE
     psum of the accumulators: j0 (3, n^3) + per-level J blocks
     (3, nb_l, be^3); chunk counts come from the same chunking
     diffuse_sweep_sparse uses, block counts from the production
@@ -190,23 +174,11 @@ def sparse_zones_accounting():
         # non-eager: one psum per size group; eager: one per round
         rounds = sum(math.ceil(len(v) / p) for v in groups.values())
         psums = len(groups)
-        wire = psums * acc_bytes / (ICI_GBPS * 1e9)
         bal = n_chunks / p / rounds
-        print(f"  {p} chips: {psums} psums ({wire * 1e3:.1f} ms wire) "
-              f"per sweep, chunk load balance {100 * bal:.0f}% "
-              f"({rounds} rounds; eager adds {rounds - psums} psums)")
-    per_dir_s = 3.62            # measured s/direction, r5 windowed sweep
-                                # (694.9 s / 192 dirs, BASELINE.md r5)
-    sweep_s = per_dir_s * 192
-    for p in (2, 4, 8):
-        rounds = sum(math.ceil(len(v) / p) for v in groups.values())
-        bal = n_chunks / p / rounds
-        wire = len(groups) * acc_bytes / (ICI_GBPS * 1e9)
-        eff = (sweep_s / p) / (sweep_s / p / bal + wire)
-        print(f"  predicted 192-dir deep sweep at {p} chips: "
-              f"{sweep_s / p / bal:.0f} s "
-              f"(efficiency ~{100 * eff:.0f}%, vs {sweep_s:.0f} s "
-              f"single-chip)")
+        print(f"  {p} devices: {psums} psums of "
+              f"{acc_bytes / 1e6:.1f} MB per sweep, chunk load balance "
+              f"{100 * bal:.0f}% ({rounds} rounds; eager adds "
+              f"{rounds - psums} psums)")
 
 
 if __name__ == "__main__":

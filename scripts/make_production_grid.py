@@ -4,9 +4,10 @@
 refinement — the reference's production regime
 (/root/reference/inputParameters:3 with deep nesting) as a REAL ingestable
 input: per-level cell lists (pos, logT, log nH, log xHI) in the npz schema
-io.grid_io reads, plus a source list and an inputParameters file.
+io.grid_io reads, plus a source list and a mode-8 inputParameters file.
+`--levels 1` writes the uniform 128^3 grid alone.
 
-    python scripts/make_production_grid.py --out /tmp/rt_prod [--n 128]
+    python scripts/make_production_grid.py --out <dir> [--n 128] [--levels 4]
 """
 
 from __future__ import annotations
@@ -20,14 +21,14 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import numpy as np
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--out", default="/tmp/rt_prod")
+    ap.add_argument("--out", required=True)
     ap.add_argument("--n", type=int, default=128)
     ap.add_argument("--levels", type=int, default=4)
     ap.add_argument("--box-kpc", type=float, default=1200.0)
     ap.add_argument("--n-src", type=int, default=8)
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
 
     from radiativetransfer_tpu.io import grid_io
     sys.path.insert(0, os.path.dirname(__file__))

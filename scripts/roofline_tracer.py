@@ -3,11 +3,10 @@
 Decomposes the tracer's per-while-step cost into its four component
 kernels, measures each at the production shape on the live backend, counts
 the ACTUAL lockstep iterations each phase executes (numpy geometry replay,
-host-side), and prints measured-vs-floor. The analog of
-scripts/roofline_sweep.py for the hot loop of
+host-side), and prints measured-vs-floor, for the hot loop of
 /root/reference/equiSources.f90:3168-3276.
 
-Run on TPU:  python scripts/roofline_tracer.py
+Run on the GPU:  python scripts/roofline_tracer.py
 Env: ROOF_N (grid, default 128), ROOF_SOURCES (default 8)
 """
 
@@ -33,8 +32,7 @@ NSRC = int(os.environ.get("ROOF_SOURCES", "8"))
 REPS = 3
 
 
-def sync(x):
-    return float(jnp.sum(x))
+sync = jax.block_until_ready
 
 
 def timeit(fn, *args):

@@ -3,13 +3,13 @@
 Single blackbody source in uniform hydrogen, iterated to photoionization
 equilibrium; the ionization-front radius is compared with the analytic
 R_S = (3 Q / (4 pi alpha_B nH^2))^(1/3) at 32^3 / 64^3 / 128^3
-(BASELINE.json config-2 scale) to show the error shrinking with
+to show the error shrinking with
 resolution.  Reference analog: the point-source solve of
 equiSources.f90:1260-1364 with the split law :304-309.
 
-Run on TPU:  python scripts/stromgren_convergence.py
+Run on the GPU:  python scripts/stromgren_convergence.py
 Env: STROM_NS="32,64,128"   grid sizes
-     STROM_F64=1            float64 (default f32 on TPU)
+     STROM_F64=1            float64 (default f32)
 """
 
 from __future__ import annotations

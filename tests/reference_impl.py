@@ -478,6 +478,23 @@ def serial_sweep_multilevel(kappas: list, refined: list,
 # ---------------------------------------------------------------------------
 
 
+def quadrature_deposit_serial(depth, tau, quad_A, quad_W_b):
+    """One segment's six rate deposits per unit ndot, float64: the
+    spectral sum W e0_f (1 - exp(-tau_j A[j, f])) with e0 = exp(-depth . A)
+    (stellarBetaTable.f90:217-285).  depth (4,), tau (3,), quad_A (4, F),
+    quad_W_b (F, 6) of the ray's SED bucket.  Returns {RateFields name:
+    value}; band j = 0, 1, 2 is HI, HeI, HeII."""
+    e0 = np.exp(-(depth @ quad_A))                     # (F,)
+    out = {}
+    for j, (kname, cname) in enumerate(
+            (("krate24", "crate24"), ("krate26", "crate26"),
+             ("krate25", "crate25"))):
+        g = e0 * -np.expm1(-tau[j] * quad_A[j])
+        out[kname] = g @ quad_W_b[:, j]
+        out[cname] = g @ quad_W_b[:, j + 3]
+    return out
+
+
 def serial_trace(fields, n, cell_size, sources_pos, sources_ndot,
                  quad_A, quad_W, sig_ratio, out_radii_cm,
                  max_pixel_level, table_idx=None):
@@ -524,13 +541,9 @@ def serial_trace(fields, n, cell_size, sources_pos, sources_ndot,
     ndot_spectrum = np.zeros((S, ne))
 
     def deposit(cell, depth, tau, ndot, b):
-        e0 = np.exp(-(depth @ quad_A))                     # (F,)
-        for j, (kname, cname) in enumerate(
-                (("krate24", "crate24"), ("krate26", "crate26"),
-                 ("krate25", "crate25"))):
-            g = e0 * -np.expm1(-tau[j] * quad_A[j])
-            rates[kname][cell] += ndot * (g @ quad_W[b, :, j])
-            rates[cname][cell] += ndot * (g @ quad_W[b, :, j + 3])
+        for name, v in quadrature_deposit_serial(depth, tau, quad_A,
+                                                 quad_W[b]).items():
+            rates[name][cell] += ndot * v
 
     def march(src, pos, direction, level, radius, ndot, depth, ipix):
         """One ray from its spawn to death or split; returns children."""

@@ -624,6 +624,33 @@ class TestSparseZonesDistributed:
                 err_msg=f"split={split}")
         sparse.make_step(None, mesh=None)   # restore single-device state
 
+    def test_distributed_step_keeps_replicated_layout(self):
+        """The CLI replicates the sparse state over the mesh before the
+        first iteration; the step must hand back that same layout, or
+        every next iteration's input sharding differs from the first and
+        the whole step compiles again."""
+        from radiativetransfer_tpu.parallel import mesh as pmesh
+        if len(jax.devices()) < 8:
+            pytest.skip("needs 8 virtual devices")
+        n, L = 8, 3
+        rt, _, sparse = TestSparseStepParity()._models(
+            n, MODE_BOTH_STELLAR_UVB_TRANSFER)
+        from radiativetransfer_tpu.tables import stellar as stellar_tables
+        ml, _ = _clustered_ml(n, L, seed=41, scale=5e-4)
+        mesh = pmesh.make_grid_mesh(8)
+        rep = pmesh.replicated(mesh)
+        sp = jax.device_put(amr_sparse.sparse_from_dense(ml, be=8), rep)
+        batch = rays.SourceBatch(position=np.full((2, 3), 0.5),
+                                 weight=np.ones(2),
+                                 table_idx=np.zeros(2, np.int32))
+        ctx = step_mod.StellarContext.build(
+            stellar_tables.blackbody_population(), batch, rt.geom,
+            10.0 * MYR, metal_coefs=[(0, 0.0)], max_pixel_level=2)
+        out, _ = sparse.make_step(ctx, mesh=mesh)(sp)
+        for x in jax.tree_util.tree_leaves(out):
+            assert x.sharding.is_equivalent_to(rep, x.ndim), x.sharding
+        sparse.make_step(None, mesh=None)   # restore single-device state
+
 
 class TestShardedSparseMemoryContract:
     """Prove the O(leaves/P) sharded-sparse claim (VERDICT r4 weak-6):

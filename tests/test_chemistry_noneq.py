@@ -161,7 +161,7 @@ def _assert_close(got, want, nh, rel=0.03, floor=1e-6):
 # --------------------------------------------------------------------------
 
 def test_ionizing_front(dev_tables):
-    """Neutral gas hit by a strong ionizing flux (BASELINE config-1 analog)."""
+    """Neutral gas hit by a strong ionizing flux."""
     nh, nhe = 1e-3, 1e-4 * 0.79
     x0 = 1e-6
     y0 = np.array([nh * (1 - x0), nh * x0, nhe, 0.0, 0.0, nh * x0,
@@ -211,7 +211,7 @@ def test_h2_formation_cold_gas(dev_tables):
 
 def test_h2_photodissociation_lw(dev_tables):
     """Lyman-Werner (k31) destruction of an initial H2 reservoir — the
-    channel BASELINE config 3 requires in the combined solve."""
+    channel the combined H/He/H2 solve requires."""
     nh = 1.0
     fh2 = 1e-3
     y0 = np.array([nh * (1 - 2 * fh2), 1e-8 * nh, 0.079, 0.0, 0.0,

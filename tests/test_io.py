@@ -217,7 +217,9 @@ class TestDiagnostics:
 
 class TestConfig:
     def test_parse_reference_input_parameters(self):
-        with open("/root/reference/inputParameters") as fh:
+        path = os.path.join(os.path.dirname(__file__), "data",
+                            "inputParameters")
+        with open(path) as fh:
             cfg = config_mod.parse_legacy_input_parameters(fh.read())
         assert cfg.mode == 1
         assert cfg.current_redshift == 6.55

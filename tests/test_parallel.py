@@ -96,28 +96,6 @@ class TestShardedSweep:
         j_dist = np.asarray(run(kappa, uvb, cell))
         np.testing.assert_allclose(j_dist, j_single, rtol=1e-13)
 
-    def test_rdma_halo_sweep_matches_single_device(self):
-        """The in-kernel Pallas RDMA halo-line sweep (parallel.sweep_rdma,
-        SURVEY.md §5.8) must reproduce the serial sweep: the ring protocol
-        (ping-pong slots, ACK flow control, per-stage remote copies) runs
-        under the Pallas interpreter on the CPU mesh."""
-        from radiativetransfer_tpu.parallel import sweep_rdma
-        n = 16
-        rng = np.random.default_rng(3)
-        cell = KPC
-        kappa = jnp.asarray(rng.lognormal(0, 1, (3, n, n, n)) * 0.5 / cell,
-                            jnp.float64)
-        uvb = jnp.asarray([1.0, 0.5, 0.25], jnp.float64)
-        plan = sweep.build_sweep_plan(1, n)
-        j_single = np.asarray(sweep.diffuse_sweep(kappa, plan, uvb, cell))
-
-        mesh = pmesh.make_grid_mesh(8)
-        kappa_sh = jax.device_put(kappa, pmesh.band_field_sharding(mesh))
-        run = sweep_rdma.make_jitted_sweep_rdma(plan, mesh, interpret=True)
-        j_dist = run(kappa_sh, uvb, cell)
-        assert len(j_dist.sharding.device_set) == 8
-        np.testing.assert_allclose(np.asarray(j_dist), j_single, rtol=1e-13)
-
     def test_sharded_output_stays_sharded(self):
         # the chemistry update must not gather the grid to one device
         n = 16

@@ -3,6 +3,7 @@ Stromgren-sphere oracle (SURVEY.md §4b)."""
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -97,6 +98,39 @@ class TestSourceTables:
                 heat_q = float(e @ quad_w[:, band + 3])
                 assert float(num[band, 0]) == pytest.approx(num_q, rel=1e-6)
                 assert float(heat[band, 0]) == pytest.approx(heat_q, rel=1e-6)
+
+    def test_quadrature_deposit_f32_highest_matches_oracle(self, pop):
+        """The f32 quadrature deposit pins its products to HIGHEST (on the
+        GPU an unpinned f32 product may run in TF32, ~3 digits) and agrees
+        with the float64 serial oracle for optical depths up to the f32
+        kill depth."""
+        from reference_impl import quadrature_deposit_serial
+        quad_a, quad_w = stellar.quadrature_arrays(pop, 0, 0.0, 0, 0.0)
+        quad_w = quad_w / np.abs(quad_w).max()     # f32-representable
+        rng = np.random.default_rng(7)
+        r = 64
+        depth = rng.uniform(0.0, 30.0, (r, 4)) * [1.0, 1.0, 1.0, 0.0]
+        dtau = 10.0 ** rng.uniform(-6.0, 0.5, (r, 3))
+        args = (jnp.asarray(depth, jnp.float32),
+                jnp.asarray(dtau, jnp.float32),
+                jnp.asarray(quad_a, jnp.float32),
+                jnp.asarray(quad_w[None], jnp.float32),
+                jnp.zeros(r, jnp.int32), jnp.ones(r, jnp.float32))
+        eqns = jax.make_jaxpr(rays._deposit_quadrature)(*args).eqns
+        dots = [e for e in eqns if e.primitive.name == "dot_general"]
+        highest = jax.lax.Precision.HIGHEST
+        assert dots and all(e.params["precision"] == (highest, highest)
+                            for e in dots)
+        got = rays._deposit_quadrature(*args)
+        ref = [quadrature_deposit_serial(depth[i], dtau[i], quad_a, quad_w)
+               for i in range(r)]
+        for k, name in enumerate(("krate24", "krate25", "krate26",
+                                  "crate24", "crate25", "crate26")):
+            want = np.array([x[name] for x in ref])
+            have = np.asarray(got[k], np.float64)
+            assert got[k].dtype == jnp.float32
+            sig = np.abs(want) > 1e-6 * np.abs(want).max()
+            np.testing.assert_allclose(have[sig], want[sig], rtol=1e-4)
 
     def test_h_only_band_mode(self, pop, src_tables, dev_tables):
         """n_bands=1 (H-only configs) deposits identical krate24/crate24
@@ -249,7 +283,7 @@ def test_stromgren_convergence_at_64(tmp_path):
     """Measured-resolution tightening (VERDICT r2 weak-4): at 64^3 the 3-D
     front radius matches the 1-D spectral-quadrature oracle to well under a
     percent (measured r3: err_vol -0.02%, err_half +0.05%; bounds 5x/10x).
-    The 32/64/128 table lives in BASELINE.md (scripts/stromgren_convergence)."""
+    scripts/stromgren_convergence.py runs the 32/64/128 sequence."""
     import importlib.util
     import os
     spec = importlib.util.spec_from_file_location(

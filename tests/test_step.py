@@ -1,6 +1,5 @@
-"""End-to-end iteration tests: the minimum end-to-end slice
-(BASELINE config 1 semantics: uniform grid, diffuse UVB, equilibrium
-chemistry, neutral-fraction convergence)."""
+"""End-to-end iteration tests: the minimum end-to-end slice (uniform
+grid, diffuse UVB, equilibrium chemistry, neutral-fraction convergence)."""
 
 import dataclasses
 

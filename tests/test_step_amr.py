@@ -1,4 +1,4 @@
-"""End-to-end two-level AMR iteration tests (BASELINE config 5 semantics)."""
+"""End-to-end two-level AMR iteration tests."""
 
 import dataclasses
 

@@ -70,6 +70,18 @@ class TestSweepPhysics:
                                    np.asarray(uvb)[:, None, None, None]
                                    * np.ones((3, n, n, n)), rtol=1e-6)
 
+    def test_transparent_box_recovers_uvb_f32(self):
+        # the f32 path (the card's default) through its small-tau branch
+        n = 6
+        kappa = jnp.full((3, n, n, n), 1e-30, jnp.float32)
+        uvb = jnp.array([1.0, 0.5, 0.25], jnp.float32)
+        plan = sweep.build_sweep_plan(1, n)
+        j = sweep.diffuse_sweep(kappa, plan, uvb, KPC)
+        assert j.dtype == jnp.float32
+        np.testing.assert_allclose(np.asarray(j),
+                                   np.asarray(uvb)[:, None, None, None]
+                                   * np.ones((3, n, n, n)), rtol=1e-5)
+
     def test_opaque_box_center_dark(self):
         # very optically thick uniform box: the center sees (almost) nothing
         n = 8
@@ -126,3 +138,21 @@ class TestSweepPhysics:
         assert np.all(j > 0)
         # J cannot exceed the boundary intensity (no emission inside)
         assert np.all(j <= np.asarray(uvb)[:, None, None, None] * (1 + 1e-9))
+
+
+class TestSweepPlan:
+    def test_malformed_chain_table_rejected(self):
+        """The plan check (SURVEY.md 5.2): the slab step selects shifts and
+        lengths by chain code, so a corrupted code must be rejected before
+        it can silently give wrong intensities."""
+        import dataclasses
+
+        plan = sweep.build_sweep_plan(1, 8)
+        bad_zone = plan.zones[0]
+        chain2 = np.asarray(bad_zone.chain2).copy()
+        chain2[0, 0] = 7                       # not a segment code
+        bad_zone = dataclasses.replace(bad_zone, chain2=chain2)
+        with pytest.raises(ValueError, match="malformed chain table"):
+            sweep.validate_zone_tables(bad_zone)
+        for z in plan.zones:                   # real plans pass
+            sweep.validate_zone_tables(z)
